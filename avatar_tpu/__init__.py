@@ -1,4 +1,4 @@
-"""avatar_tpu — a TPU-native real-time depth-to-avatar fitting framework.
+"""avatar_tpu — a real-time depth-to-avatar fitting framework on the GPU.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the OpenARK
 avatar system (reference: sxyu/avatar, C++/Ceres/OpenCV): fitting a SMPL-family
@@ -6,15 +6,15 @@ body model to depth-camera point clouds in real time, plus the full offline
 toolchain (synthetic depth-data generation, random-forest body-part
 segmentation training, model surgery, dataset recording/playback).
 
-Design principles (TPU-first, not a port):
+Design principles (built for an accelerator, not a port):
   * All per-frame compute (LBS forward, rasterization, correspondence search,
     Gauss-Newton solve, decision-forest inference, connected components) runs
     as jit-compiled XLA programs with static shapes; hot inner kernels have
     Pallas implementations.
   * The Ceres/BFGS CPU optimizer of the reference is replaced by a fused
     on-device Levenberg-Marquardt ICP iteration with analytic Jacobians.
-  * nanoflann kd-trees are replaced by tiled brute-force masked top-1
-    distance search (MXU matmuls).
+  * nanoflann kd-trees are replaced by brute-force masked top-1 distance
+    search (a part-ranged Pallas kernel on the GPU, plain XLA elsewhere).
   * Multi-chip scaling uses `jax.sharding.Mesh` + `shard_map` (data-parallel
     synthetic rendering and forest training with `psum` count reduction).
 

@@ -69,7 +69,7 @@ class AvatarPoseSequence:
 
     def frames_as_arrays(self, dtype=jnp.float32):
         """Whole bank as (pos [F,3], rots [F,J,3,3]) jnp arrays for batched
-        on-device pose sampling (the TPU equivalent of per-thread poseAvatar
+        on-device pose sampling (the device equivalent of per-thread poseAvatar
         calls in the reference trainers)."""
         if self._data is None:
             self.preload()

@@ -97,7 +97,7 @@ class ForestData:
     """Raw loaded decision-tree data: flat node arrays + leaf distributions.
 
     nodes are stored structure-of-arrays for direct use by the vectorized
-    TPU tree-walk: u [N,2], v [N,2], thresh [N], lnode [N], rnode [N],
+    device tree-walk: u [N,2], v [N,2], thresh [N], lnode [N], rnode [N],
     leafid [N] (-1 for internal nodes); leaf_data [L, num_parts].
     """
 

@@ -48,7 +48,7 @@ class AvatarOptimizer:
         self.nn_step = 1
         self.max_iters_per_icp = 10
         self.enable_occlusion = True
-        # TPU-rebuild extras (not in the reference): Huber IRLS robust
+        # extras of this rebuild (not in the reference): Huber IRLS robust
         # weighting and an optional point-to-plane residual mix.
         self.robust = True
         self.point_weight = 1.0
@@ -145,7 +145,8 @@ class AvatarOptimizer:
         )
         # The reference's compute budget was icp_iters NN updates x
         # maxItersPerICP solver iterations; our fit re-matches every LM step
-        # (NN is ~free on TPU), so the equivalent step budget is the product.
+        # (no kd-tree to rebuild), so the equivalent step budget is the
+        # product.
         n_steps = int(icp_iters) * int(self.max_iters_per_icp)
         theta, diag = fit(
             ctx, ava.model.parents,

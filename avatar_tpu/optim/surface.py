@@ -54,7 +54,7 @@ def closest_point_triangle(p: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray,
 
     All inputs broadcastable [..., 3].  Returns (bary [..., 3], d2 [...]).
     Voronoi-region classification after Ericson, 'Real-Time Collision
-    Detection' §5.1.5, expressed as a where-cascade so it vectorizes on TPU.
+    Detection' §5.1.5, expressed as a where-cascade so it vectorizes.
     """
     ab = b - a
     ac = c - a
@@ -129,10 +129,9 @@ def surface_correspond(data_pts: jnp.ndarray, corr_vertex: jnp.ndarray,
                    contains back faces whose plane would otherwise capture
                    the match).  Frontness is computed HERE from the
                    already-gathered corners: gathering a precomputed [F]
-                   bool mask per candidate costs ~0.8 ms/step on v5e (a
-                   98k-element gather against bit-packed pred tiling,
-                   profiled in scripts/trace_refine_ops.py) while the
-                   cross product on gathered corners is pure vector work.
+                   bool mask per candidate is one more 98k-element
+                   gather per step, while the cross product on gathered
+                   corners is pure vector work.
 
     Returns (tri_idx [N, 3] int32 vertex ids, bary [N, 3], normal [N, 3]
     unit face normal, valid [N] bool).  Unmatched rows collapse onto
@@ -142,7 +141,7 @@ def surface_correspond(data_pts: jnp.ndarray, corr_vertex: jnp.ndarray,
     into [F, 9] rows so the per-candidate lookup is a SINGLE gather with
     36-byte rows ([N, R] candidates) — three separate x[faces[rfc][...,k]]
     gathers move the same volume in 12-byte rows plus an int [N, R, 3]
-    face-vertex gather, ~4x the measured gather time on v5e.
+    face-vertex gather.
     """
     cid = jnp.maximum(corr_vertex, 0)
     rf = ring_faces[cid]                                   # [N, R]

@@ -1,6 +1,6 @@
 """Connected components as label propagation (jit-compiled, static shapes).
 
-TPU rebuild of the reference's explicit-stack flood fills
+Static-shape rebuild of the reference's explicit-stack flood fills
 (suppressPartNonMax / removeSmallPieces, RTree.cpp:126-321; BGSubtractor's
 ffill, BGSubtractor.cpp:10-157).  Pixels propagate the minimum flat index of
 their component across gated 4-neighbor edges; a pointer-jumping pass
@@ -77,7 +77,7 @@ def connected_components(active: jnp.ndarray, edge_gate_fn=None,
             nb = _shift(label, dy, dx, big)
             new = jnp.where(g, jnp.minimum(new, nb), new)
         # pointer doubling: labels index pixels; one rebuilt-table chase per
-        # sweep (random gathers cost ~1 ms each on TPU, so more chases per
+        # sweep (random gathers are the expensive part, so more chases per
         # sweep lose — run CC on a coarse grid instead when speed matters)
         newf = new.reshape(-1)
         pad = jnp.concatenate([newf, jnp.asarray([big], jnp.int32)])

@@ -1,4 +1,4 @@
-"""Body-part grouping for correspondence (a TPU-side generalization of the
+"""Body-part grouping for correspondence (a device-side generalization of the
 reference's part-map indirection, RTree.h:150-166 / readPartMap).
 
 The reference matches each data point only to model vertices of the *same*

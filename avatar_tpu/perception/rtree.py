@@ -11,7 +11,7 @@ the depth-probe feature
 with out-of-ROI / zero depth mapping to BACKGROUND_DEPTH = 20 m
 (RTree.cpp:40-68, 3224-3237), and branches left/right; leaves self-loop.
 Tree depth <= ~20 so the walk is a short fori_loop — embarrassingly parallel
-on TPU.
+over pixels.
 
 Post-processing (part-blob filtering with center-of-mass tracking) uses the
 label-propagation connected-components kernel in cc.py instead of explicit-

@@ -1,6 +1,6 @@
 """Exact z-buffer triangle rasterization as a jitted XLA program.
 
-TPU-first replacement for the reference's CPU painter's-algorithm scanline
+Device-side replacement for the reference's CPU painter's-algorithm scanline
 rasterizer (AvatarRenderer.cpp:39-101, AvatarHelpers.cpp:62-313).  Instead of
 sorting faces by depth and painting back-to-front (approximate, serial), we
 compute an exact z-buffer with static shapes:
@@ -13,12 +13,12 @@ compute an exact z-buffer with static shapes:
      scatter-min of a packed int32 key (quantized depth << 14 | face id)
      into the flat image.
 
-The pack keeps everything int32 (TPU-native): 17 bits of depth over
-[0, z_max] (~0.15 mm at 20 m — below sensor noise) to rank fragments, 14
-bits of face id to identify the winner.  Exact interpolated depth is then
-recomputed from the winning face id in a cheap per-pixel post pass, so the
-output depth is full f32 precision; quantization only affects which face
-wins within 0.15 mm — tighter than the painter's algorithm it replaces.
+The pack keeps everything int32 (one atomic min per fragment): 17 bits of
+depth over [0, z_max] (~0.15 mm at 20 m — below sensor noise) to rank
+fragments, 14 bits of face id to identify the winner.  Exact interpolated
+depth is then recomputed from the winning face id in a cheap per-pixel post
+pass, so the output depth is full f32 precision; quantization only affects
+which face wins within 0.15 mm — tighter than the painter's algorithm it replaces.
 
 vmap over a leading batch axis for synthetic-data generation.
 """

@@ -235,3 +235,145 @@ def write_synthetic_model_dir(out_dir: str, detail: int = 1, n_keys: int = 10,
     synthetic_pose_prior(J, seed=seed + 1).save(
         os.path.join(out_dir, "pose_prior.txt"))
     return out_dir
+
+
+# --- the benchmark scene (shared by bench.py and chip_smoke.py) -----------
+
+# Azure Kinect 1280x720 depth intrinsics as the reference's live demo sets
+# them (live-demo.cpp:179-184)
+K4A_INTRIN = dict(fx=606.438, fy=606.351, cx=637.294, cy=366.992)
+
+
+def bench_sequence(model: AvatarModel, intrin, size, n_frames: int) -> dict:
+    """A ground-truth avatar moving smoothly in front of a wall 4 m away,
+    rendered on device to uint16 millimeter depth frames (the camera-native
+    format).
+
+    Returns dict(frames=[(depth_u16 [H, W], part_mask [H, W])],
+    joints=[J, 3] per frame, verts=[P, 3] per frame, theta0=(w, p, r) of
+    frame 0, background=[H, W] float depth of the empty scene).
+    """
+    import jax.numpy as jnp
+
+    from avatar_tpu.core import rotation
+    from avatar_tpu.core.model import Avatar
+    from avatar_tpu.render.renderer import AvatarRenderer
+
+    H, W = size
+    gt = Avatar(model)
+    gt.randomize(seed=77)
+    gt.w *= 0.3
+    gt.p = np.array([0.0, 0.1, 2.6])
+    gt.r[0] = np.diag([-1.0, 1.0, -1.0])
+    rng = np.random.default_rng(8)
+    # bounded sinusoidal joint motion around the base pose (a random walk
+    # drifts into contortions no human performs)
+    amp = rng.normal(0, 0.10, (24, 3))
+    freq = rng.uniform(0.15, 0.5, (24, 3))
+    phase = rng.uniform(0, 2 * np.pi, (24, 3))
+    base_r = gt.r.copy()
+    base_p = gt.p.copy()
+    background = np.full((H, W), 4.0, np.float32)
+    out = dict(frames=[], joints=[], verts=[], theta0=None,
+               background=background)
+    for t in range(n_frames):
+        gt.update()
+        rend = AvatarRenderer(gt, intrin)
+        depth = rend.render_depth((H, W))
+        mask = rend.render_part_mask((H, W))
+        scene = np.where(depth > 0, depth, background)
+        out["frames"].append(((scene * 1000).astype(np.uint16), mask))
+        out["joints"].append(gt.joint_pos.copy())
+        out["verts"].append(gt.cloud.copy())
+        if t == 0:
+            out["theta0"] = (gt.w.copy(), gt.p.copy(), gt.r.copy())
+        wig = amp * np.sin(freq * (t + 1) + phase)
+        step = np.asarray(rotation.so3_exp(jnp.asarray(wig, jnp.float32)))
+        gt.r = np.einsum("jab,jbc->jac", step, base_r)
+        gt.p = base_p + np.array([0.25 * np.sin(0.2 * (t + 1)), 0.0,
+                                  0.15 * np.sin(0.13 * (t + 1))])
+    return out
+
+
+def bench_tracker_kwargs(quick: bool = False,
+                         part_groups: bool = True) -> dict:
+    """TrackerConfig overrides of the benchmark operating point (the
+    reference's production settings, live-demo.cpp:60-120, at this
+    tracker's tuned LM budget)."""
+    from avatar_tpu.perception.partgroups import SMPL24_GROUP_LUT
+
+    return dict(data_interval=4 if quick else 6,
+                min_points=200 if quick else 1000,
+                # 2 x 4 = 8 LM steps/frame: with the constant-velocity
+                # warm start the fit stall-exits near the optimum
+                frame_icp_iters=2, reinit_icp_iters=6,
+                initial_icp_iters=7, iters_per_icp=4,
+                label_conf_thresh=0.55,
+                rtree_interval=2 if quick else 3,
+                part_groups=tuple(SMPL24_GROUP_LUT) if part_groups else None)
+
+
+def load_forest(path: str):
+    """The tree at ``path`` plus its bagged siblings (``_1``, ``_2``, ...
+    beside it): a list of RTrees, or one RTree when it has no siblings."""
+    from avatar_tpu.perception.rtree import RTree
+
+    paths = [path]
+    k = 1
+    while os.path.exists(path.replace(".srtr", f"_{k}.srtr")):
+        paths.append(path.replace(".srtr", f"_{k}.srtr"))
+        k += 1
+    trees = [RTree(p) for p in paths]
+    for t in trees:
+        t.partmap_type = 0  # contiguous body parts
+    return trees if len(trees) > 1 else trees[0]
+
+
+def converged_fit_rmse_mm(tracker, model: AvatarModel, intrin, frame,
+                          mask, theta0, verts0, data_interval: int) -> float:
+    """Converged-fit exactness (BASELINE.md "<1 mm fitted-mesh vertex
+    RMSE"): fit one frame's oracle-labeled stride samples with fit_refine
+    (point-to-MESH ICP, optim/surface.py) from the ground-truth pose, with
+    near-zero priors, and return the fitted mesh's vertex RMSE against the
+    true mesh in millimeters.  The probe isolates solver + correspondence
+    exactness from the motion budget and the tracking regularizers."""
+    import jax.numpy as jnp
+
+    from avatar_tpu.core.lbs import lbs
+    from avatar_tpu.optim.gauss_newton import Theta, fit_refine
+    from avatar_tpu.optim.surface import vertex_face_rings
+
+    w0, p0, r0 = theta0
+    theta_gt = Theta(p=jnp.asarray(p0, jnp.float32),
+                     rots=jnp.asarray(r0, jnp.float32),
+                     w=jnp.asarray(w0, jnp.float32))
+    s = data_interval
+    d0 = frame[::s, ::s].astype(np.float32) * 1e-3
+    m0 = np.asarray(mask)[::s, ::s]
+    ys = np.arange(d0.shape[0]) * s
+    xs = np.arange(d0.shape[1]) * s
+    sub = np.stack([(xs[None, :] - intrin.cx) * d0 / intrin.fx,
+                    -(ys[:, None] - intrin.cy) * d0 / intrin.fy, d0], -1)
+    fg = (m0 != 255) & (d0 > 0)
+    n0 = int(fg.sum())
+    bucket = 1024
+    while bucket < n0:
+        bucket *= 2
+    pts = np.zeros((bucket, 3), np.float32)
+    pts[:n0] = sub[fg]
+    parts = np.full(bucket, -1, np.int32)
+    parts[:n0] = m0[fg]
+    if tracker._glut is not None:
+        # the fit matches in group space; fold the oracle labels to match
+        parts[:n0] = np.asarray(tracker._glut)[parts[:n0]]
+    ring = jnp.asarray(vertex_face_rings(np.asarray(model.faces),
+                                         model.num_points()))
+    out = fit_refine(tracker._ctx, model.parents, ring, jnp.asarray(pts),
+                     jnp.asarray(parts), theta_gt,
+                     jnp.asarray(1e-4, jnp.float32),
+                     jnp.asarray(1e-4, jnp.float32), n_steps=20,
+                     num_parts=tracker.num_parts)
+    verts, _, _, _ = lbs(model.params, model.parents, out[0].w, out[0].p,
+                         out[0].rots)
+    return float(np.sqrt(np.mean(np.sum(
+        (np.asarray(verts) - verts0) ** 2, axis=1))) * 1e3)

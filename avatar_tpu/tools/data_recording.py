@@ -19,9 +19,11 @@ import numpy as np
 
 from avatar_tpu.io.camera import open_camera
 from avatar_tpu.io.dataset import Dataset, DatasetWriter
+from avatar_tpu.utils import enable_compile_cache
 
 
 def main(argv=None):
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("out_dir")
     ap.add_argument("--camera", default="synthetic",

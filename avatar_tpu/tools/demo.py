@@ -20,6 +20,7 @@ from avatar_tpu.io.dataset import Dataset
 from avatar_tpu.perception.rtree import RTree
 from avatar_tpu.tools.common import add_model_args, load_model
 from avatar_tpu.tracking import Tracker, TrackerConfig
+from avatar_tpu.utils import enable_compile_cache
 
 
 def build_parser():
@@ -75,6 +76,7 @@ def build_parser():
 
 
 def main(argv=None):
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     ds = Dataset(args.dataset_path, pad=args.pad)
     model = load_model(args)

@@ -37,6 +37,7 @@ import sys
 import numpy as np
 
 from avatar_tpu.io.dataset import Dataset
+from avatar_tpu.utils import enable_compile_cache
 
 # reference state machine constants (:30-37)
 STATE_NO_FACE = 0
@@ -326,6 +327,7 @@ class Pipeline:
 
 
 def main(argv=None):
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("dataset_path")
     ap.add_argument("-i", "--start", type=int, default=1)

@@ -19,6 +19,7 @@ from avatar_tpu.io.camera import open_camera
 from avatar_tpu.perception.rtree import RTree
 from avatar_tpu.tools.common import add_model_args, load_model
 from avatar_tpu.tracking import Tracker, TrackerConfig
+from avatar_tpu.utils import enable_compile_cache
 
 
 class LiveDemoState:
@@ -134,6 +135,7 @@ def main(argv=None, key_source=None, on_frame=None):
     display window.  on_frame: optional callback
     ``(frame_no, state, result_or_None)`` for observability/testing.
     """
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     model = load_model(args)
     cam = open_camera(args.camera)

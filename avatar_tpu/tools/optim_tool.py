@@ -19,9 +19,11 @@ from avatar_tpu.io.calibration import CameraIntrin
 from avatar_tpu.optim.optimizer import AvatarOptimizer
 from avatar_tpu.render.renderer import AvatarRenderer
 from avatar_tpu.tools.common import add_model_args, load_model
+from avatar_tpu.utils import enable_compile_cache
 
 
 def main(argv=None):
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--size", default="512x512")

@@ -16,10 +16,11 @@ import numpy as np
 
 from avatar_tpu.io import formats
 from avatar_tpu.perception.rtree import RTree
-from avatar_tpu.utils import palette_color_table
+from avatar_tpu.utils import enable_compile_cache, palette_color_table
 
 
 def main(argv=None):
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("depth_file")
     ap.add_argument("trees", nargs="+",

@@ -16,7 +16,7 @@ import numpy as np
 
 from avatar_tpu.io.dataset import Dataset
 from avatar_tpu.perception.rtree import RTree
-from avatar_tpu.utils import palette_color_table
+from avatar_tpu.utils import enable_compile_cache, palette_color_table
 
 
 def build_parser():
@@ -98,6 +98,7 @@ def _segment(ds, trees, fid, args, com_pre):
 
 
 def main(argv=None, key_source=None, on_frame=None):
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     ds = Dataset(args.dataset_path, pad=args.pad)
     trees = [RTree(p) for p in args.trees]

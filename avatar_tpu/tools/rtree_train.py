@@ -16,6 +16,7 @@ from avatar_tpu.io.calibration import CameraIntrin
 from avatar_tpu.io import formats
 from avatar_tpu.perception.rtree import RTree
 from avatar_tpu.tools.common import add_model_args, load_model, load_pose_seq
+from avatar_tpu.utils import enable_compile_cache
 
 
 def build_parser():
@@ -54,7 +55,7 @@ def build_parser():
                          "jax.sharding.Mesh (data-parallel image batches, "
                          "psum'd count tensors; 0 = single device).  The "
                          "trained tree is identical to the single-device "
-                         "one.  TPU analogue of the reference's "
+                         "one.  Device analogue of the reference's "
                          "--num-threads (RTree.cpp:1700-1704 mutex-reduce)")
     ap.add_argument("--data", default="",
                     help="train from a recorded dataset dir containing "
@@ -66,6 +67,7 @@ def build_parser():
 
 
 def main(argv=None):
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     part_map = None
     num_parts = args.num_parts

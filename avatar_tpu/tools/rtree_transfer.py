@@ -16,9 +16,11 @@ import argparse
 from avatar_tpu.io.calibration import CameraIntrin
 from avatar_tpu.perception.rtree import RTree
 from avatar_tpu.tools.common import add_model_args, load_model, load_pose_seq
+from avatar_tpu.utils import enable_compile_cache
 
 
 def main(argv=None):
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("input", help="trained .srtr")
     ap.add_argument("output", help="output .srtr")

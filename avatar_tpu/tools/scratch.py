@@ -23,9 +23,11 @@ import numpy as np
 
 from avatar_tpu.core.model import Avatar
 from avatar_tpu.tools.common import add_model_args, load_model
+from avatar_tpu.utils import enable_compile_cache
 
 
 def main(argv=None):
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-o", "--out", default="scratch.png")
     ap.add_argument("--random", type=int, default=0, metavar="SEED")

@@ -24,6 +24,7 @@ from avatar_tpu.core.model import Avatar
 from avatar_tpu.io.calibration import CameraIntrin
 from avatar_tpu.render.renderer import AvatarRenderer
 from avatar_tpu.tools.common import add_model_args, load_model
+from avatar_tpu.utils import enable_compile_cache
 
 
 class InteractiveViewer:
@@ -149,6 +150,7 @@ class InteractiveViewer:
 
 
 def main(argv=None):
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-o", "--out", default="smpl_view.png")
     ap.add_argument("--pose", action="append", default=[],

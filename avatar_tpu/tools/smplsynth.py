@@ -21,6 +21,7 @@ from avatar_tpu.io.calibration import CameraIntrin
 from avatar_tpu.io.dataset import DatasetWriter
 from avatar_tpu.io import formats
 from avatar_tpu.tools.common import add_model_args, load_model, load_pose_seq
+from avatar_tpu.utils import enable_compile_cache
 
 
 def build_parser():
@@ -43,6 +44,7 @@ def build_parser():
 
 
 def main(argv=None):
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     import jax.numpy as jnp
 

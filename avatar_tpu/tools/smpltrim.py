@@ -17,6 +17,7 @@ import numpy as np
 
 from avatar_tpu.core.model import SmplJoint
 from avatar_tpu.tools.common import add_model_args, load_model
+from avatar_tpu.utils import enable_compile_cache
 
 
 def trim_model(model, delete_joints, new_root: int = 0, thresh: float = 0.6):
@@ -82,6 +83,7 @@ def trim_model(model, delete_joints, new_root: int = 0, thresh: float = 0.6):
 
 
 def main(argv=None):
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("output_path")
     ap.add_argument("-n", "--names", action="store_true",

@@ -43,9 +43,8 @@ class TrackerConfig:
     # fit re-matches every step, so the reference's outer-ICP/inner-solver
     # split collapses into one budget; gauss_newton.fit docstring).  2
     # outer iters since the constant-velocity warm start (extrapolate_pose
-    # below): the fit starts near the optimum and stall-exits, so the
-    # third outer round bought 0.8 mm joint error for +1.6 ms device time
-    # on the 40-frame TPU bench — the wrong trade at the 120 fps target.
+    # below): the fit starts near the optimum and stall-exits, so a third
+    # outer round buys little accuracy for a full round of device time.
     frame_icp_iters: int = 2
     reinit_icp_iters: int = 6
     initial_icp_iters: int = 7    # live-demo first init
@@ -59,10 +58,10 @@ class TrackerConfig:
     # tracked root's camera depth by more than this (meters) are rejected
     # before segmentation/fit — an occluder entering the scene is a new
     # blob at the wrong depth, and without the gate its points capture the
-    # ICP wholesale.  Measured scope (see tests/test_tracking_regression.py
-    # occlusion gate + data/eval_long.json): with a well-tracked entry
-    # pose the gate holds the occluded phase under 40 mm (CI gate measures
-    # 27.3 mm through a 1.6 m slab; 1030 mm without the gate).  If the
+    # ICP wholesale.  Scope (tests/test_tracking_regression.py occlusion
+    # gate): with a well-tracked entry pose the gate holds the occluded
+    # phase to a few centimeters through a 1.6 m slab, where the ungated
+    # tracker loses the body entirely.  If the
     # tracker ENTERS occlusion already mistracked (e.g. after a fast-limb
     # phase), the stale root depth can gate out the true body and the
     # recovery path dominates the phase error instead — the long eval
@@ -94,18 +93,13 @@ class TrackerConfig:
     # vertex-spacing bias on the PRODUCT path (the BASELINE "<1 mm" bar is
     # a property of the fit the system ships, not an offline probe).
     # 0 disables.
-    # ACCURACY MODE: refine_every=1, refine_steps=2 measured on the
-    # 40-frame TPU bench at 79 fps / 6.96 mm joint / 12.4 mm vertex RMSE
-    # (vs the 123 fps / 10.6 mm speed default; data/bench_x_ref2_fast.json)
-    # — each refine step costs ~1.9 ms on v5e after the round-5 gather
-    # restructure.  Refine does NOT substitute for main-fit budget:
-    # 4 main + 2 refine steps degrades to 8.6 mm (bench_x_ref2_icp1.json).
-    # Sparse refine is NOT a useful middle point either: refine_every=2,
-    # refine_steps=1 measured 111 fps / 10.14 mm joint / 15.54 mm vertex
-    # (data/bench_r5_ref2s1.json) — worse on both axes than the default
-    # with the one-shot shape refit (124 fps / 10.05 mm / 15.37 mm); a
-    # single refine step doesn't reach the surface-bias floor, so pay for
-    # 2+ steps every frame (accuracy mode) or skip refine entirely.
+    # ACCURACY MODE: refine_every=1, refine_steps=2 trades throughput for
+    # lower joint error and vertex RMSE; its cost on the GPU is not
+    # measured yet.  Refine does NOT substitute for main-fit budget (fewer
+    # main steps plus refine steps tracked worse), and sparse refine
+    # (refine_every=2, refine_steps=1) was worse on both axes than the
+    # default: a single refine step doesn't reach the surface-bias floor,
+    # so pay for 2+ steps every frame (accuracy mode) or skip refine.
     refine_every: int = 0
     refine_steps: int = 4
     refine_beta: float = 0.1
@@ -117,12 +111,9 @@ class TrackerConfig:
     # each successful (re)init — by then the pose has locked in, so the
     # shape solve is clean.  Costs one synchronous frame per (re)init
     # (batch/async paths route that single frame through the sync path)
-    # plus one extra compiled program variant.  0 = off.
-    # Measured on the 40-frame TPU forest bench (data/bench_r5_shaperefit
-    # .json vs data/bench_r5_defaults_rerun.json, same run conditions):
-    # joint 10.62 -> 10.05 mm, vertex RMSE 15.60 -> 15.37 mm, rest-shape
-    # delta 8.40 -> 7.45 mm at unchanged steady-state fps (123.9 e2e) —
-    # on by default.
+    # plus one extra compiled program variant.  0 = off.  On by default:
+    # it lowered joint error, vertex RMSE and the rest-shape delta of the
+    # forest-label bench sequence at unchanged steady-state cost.
     shape_refit_after: int = 12
     nn_dist_thresh_rel: float = 0.005
     neighb_thresh_rel: float = 0.005
@@ -155,7 +146,7 @@ class TrackerConfig:
     # n_data 7200) with the boost off: measured 10.0mm joint error vs 22.6mm
     # at the old (boost 1024, wild 512) split, at identical device cost —
     # crossing into the next bucket (wild 1024 + boost 1024, pad 16384) is
-    # WORSE (12.1mm) and ~2x the NN-kernel cost.
+    # WORSE (12.1mm) and doubles every data-axis op of the fit.
     wild_n: int = 992
     wild_gate: float = 0.2
     wild_weight: float = 0.7
@@ -172,9 +163,9 @@ class TrackerConfig:
     # trees x pixels, but tree votes only disagree on the hard
     # (extremity/boundary) pixels; torso interiors clear the gate from one
     # tree alone.  0 disables (all trees walk every pixel).  Default 0.75:
-    # measured accuracy-neutral on the 40-frame TPU bench (joint_err
-    # 11.0 mm with or without; walk stage 2.42 -> 1.44 ms/frame) — only
-    # pixels the ensemble could actually flip pay for the ensemble.
+    # accuracy-neutral on the bench sequence while the walk stage does
+    # ~40% less work — only pixels the ensemble could actually flip pay
+    # for the ensemble.
     selective_walk: float = 0.75
     # inference-side class rebalancing of forest leaf distributions:
     # multiply by (class frequency)^-alpha and renormalize, shifting the
@@ -182,9 +173,8 @@ class TrackerConfig:
     # Default 0.5: train-stride pixel starvation leaves hands/feet at
     # ~0.1-0.3% leaf sample mass, so the plain argmax never emits them;
     # alpha=0.5 lifts held-out foot pixel accuracy 0.16->0.49 / 0.39->0.50
-    # at -0.8% overall (scripts/leaf_reweight_probe.py) and is neutral on
-    # the 40-frame TPU bench (joint 10.95 vs 10.78 mm, within run noise;
-    # p12 mean match count 0 -> 1).  alpha=1.0 over-corrects (wrists
+    # at -0.8% overall (scripts/leaf_reweight_probe.py) and is tracking-
+    # neutral on the bench sequence.  alpha=1.0 over-corrects (wrists
     # 0.45->0.27).
     label_class_balance: float = 0.5
     seg_window: Optional[tuple] = (576, 448)
@@ -257,11 +247,10 @@ class TrackerConfig:
     # re-linearization steps -- the dominant per-frame device cost.
     # The reference warm-starts from the raw previous pose
     # (AvatarOptimizer.cpp:1246-1263).  0 = off.
-    # Default 0.8: measured on the 40-frame TPU bench (forest labels)
-    # joint error 10.71 -> 8.86 mm and tracking vertex RMSE 15.9 ->
-    # 13.5 mm at unchanged device time -- the fit spends its stall-exit
-    # budget converging from a closer start instead of crossing the
-    # frame's motion gap.
+    # Default 0.8: on the forest-label bench sequence it lowered joint
+    # error and tracking vertex RMSE at unchanged device work -- the fit
+    # spends its stall-exit budget converging from a closer start instead
+    # of crossing the frame's motion gap.
     extrapolate_pose: float = 0.8
 
 

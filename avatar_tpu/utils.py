@@ -32,6 +32,30 @@ def resolve_root_path(rel_path: str) -> str:
     return rel_path
 
 
+# JAX's persistent compilation cache when JAX_COMPILATION_CACHE_DIR is not
+# set: a fixed directory inside the checkout (listed in .gitignore), since
+# the cache path is part of what makes a later process find its entries.
+COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    JAX reads ``JAX_COMPILATION_CACHE_DIR`` itself; when it is set, nothing
+    is changed here.  Otherwise the cache goes to ``COMPILE_CACHE_DIR``.
+    Called by entry points (bench.py, chip_smoke.py, the tool mains), never
+    at library import.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    return COMPILE_CACHE_DIR
+
+
 # 17-color visualization palette, RGB (reference Util.cpp:110-123 stores BGR;
 # these are the same colors).
 _PALETTE = np.array([

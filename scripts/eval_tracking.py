@@ -1,4 +1,4 @@
-"""Tracking-quality evaluation harness (CPU- or TPU-runnable).
+"""Tracking-quality evaluation harness (CPU- or GPU-runnable).
 
 Runs the FusedTracker over the bench's synthetic ground-truth sequence and
 reports mean/max joint error plus the worst joints — the metric that actually

@@ -1,10 +1,9 @@
 """Component-level timing of fit_refine on the live backend.
 
-The in-tracker surface refine costs ~3.5 ms per LM step on v5e while the
-main fit's step costs ~0.44 ms; neither the planned-NN swap nor the
-mass-lumped gram changed it, so this probe times each candidate in
-isolation (NN, surface_correspond, median, cho_factor, forward, whole
-fit_refine at several budgets) to find where the time actually goes.
+The in-tracker surface refine step costs several times the main fit's
+step, so this probe times each candidate in isolation (NN,
+surface_correspond, median, cho_factor, forward, whole fit_refine at
+several budgets) to find where the time actually goes.
 """
 
 import sys
@@ -90,14 +89,13 @@ def main():
     x = fwd[0]
     vis = jnp.ones(P, jnp.bool_)
 
-    if correspond._pallas_enabled() and N % 256 == 0:
+    if correspond.nn_route() == "triton":
         plan = correspond.make_nn_plan(
-            pts, parts, ctx.model_part, num_parts=tracker.num_parts,
-            tile_n=256, chunk=512)
+            pts, parts, ctx.model_part, num_parts=tracker.num_parts)
         t("make_nn_plan (once per fit)",
           jax.jit(lambda: correspond.make_nn_plan(
-              pts, parts, ctx.model_part, num_parts=tracker.num_parts,
-              tile_n=256, chunk=512).dpts))
+              pts, parts, ctx.model_part,
+              num_parts=tracker.num_parts).dpts))
         st = correspond.find_nn_stats_planned(plan, x, vis)
         t("find_nn_stats_planned (per step)",
           jax.jit(lambda: correspond.find_nn_stats_planned(

@@ -22,7 +22,7 @@ Metrics reported:
   per_part_recall       recall for each of the 24 parts on held-out data
   ref_recipe_*          extrapolation to 1M x 2000 x depth 20 x 129
 
-Run (TPU):   python scripts/train_scale_report.py --images 2048
+Run (GPU):   python scripts/train_scale_report.py --images 2048
 Run (CPU ~): python scripts/train_scale_report.py --cpu --images 96 \
                  --pixels 200 --features 64 --depth 8
 """

@@ -2,7 +2,7 @@
 
 These deliberately follow the *structure* of the reference C++ (3x4 affine
 accumulation, per-point 12-dim blended transforms — Avatar.cpp:22-75) rather
-than the TPU formulation, so transcription errors in either would surface.
+than the device formulation, so transcription errors in either would surface.
 """
 
 import numpy as np

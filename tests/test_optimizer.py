@@ -150,49 +150,108 @@ def test_find_nn_stats_vs_bruteforce(rng):
     assert int(stats.n_matched) == int(cnt.sum())
 
 
-def test_find_nn_stats_planned_matches_unsorted(rng):
-    # the part-sorted Pallas path (interpret mode on CPU) must agree with
-    # find_nn_stats up to the data reordering of the plan
-    P, N = 300, 512
+def _nn_oracle(data, data_part, model_cloud, model_part, visible, wild,
+               gate2=None):
+    """float64 brute force: (corr [N], d2 [N]); first index wins ties."""
+    corr = np.full(len(data), -1)
+    best = np.full(len(data), np.inf)
+    for n in range(len(data)):
+        if data_part[n] < 0:
+            continue
+        mask = visible & ((model_part == data_part[n]) |
+                          (data_part[n] == wild))
+        if not mask.any():
+            continue
+        d2 = ((model_cloud.astype(np.float64) - data[n]) ** 2).sum(1)
+        d2[~mask] = np.inf
+        j = int(np.argmin(d2))
+        if data_part[n] == wild and gate2 is not None and d2[j] > gate2:
+            continue
+        corr[n], best[n] = j, d2[j]
+    return corr, best
+
+
+def _nn_case(rng, kind):
+    """Clouds for one case of the planned-search test (see its docstring)."""
     num_parts = 6
+    P, N = 300, 512
     model_cloud = rng.normal(size=(P, 3)).astype(np.float32)
     model_part = rng.integers(0, num_parts, P).astype(np.int32)
     visible = rng.random(P) < 0.7
     data = rng.normal(size=(N, 3)).astype(np.float32)
     data_part = np.full(N, -1, np.int32)
-    data_part[:400] = rng.integers(0, num_parts, 400)
+    gate2 = None
+    if kind == "plain":
+        data_part[:400] = rng.integers(0, num_parts, 400)
+    elif kind == "wildcard_gated":
+        data_part[:300] = rng.integers(0, num_parts, 300)
+        data_part[300:420] = num_parts
+        gate2 = 0.5 ** 2
+    elif kind == "padding_tiles":
+        # N not a multiple of the tile (the plan pads it), and most tiles
+        # hold nothing but padding rows
+        N = 200
+        data, data_part = data[:N], data_part[:N]
+        data_part[:37] = rng.integers(0, num_parts, 37)
+    elif kind == "exact_ties":
+        # every model point duplicated (same coordinates, same part): the
+        # kernel must pick the lower index, like the XLA argmin
+        model_cloud = np.concatenate([model_cloud[:150]] * 2)
+        model_part = np.concatenate([model_part[:150]] * 2)
+        visible = np.concatenate([visible[:150]] * 2)
+        data_part[:400] = rng.integers(0, num_parts, 400)
+    return (data, data_part, model_cloud, model_part, visible, num_parts,
+            gate2)
 
+
+@pytest.mark.parametrize("kind", ["plain", "wildcard_gated",
+                                  "padding_tiles", "exact_ties"])
+def test_find_nn_stats_planned_matches_unsorted(rng, kind):
+    """The part-sorted Pallas kernel (Triton route, interpret mode on CPU)
+    must agree with the float64 oracle and with the plain XLA search up to
+    the data reordering of the plan: plain part labels, wildcards with a
+    distance gate, tiles of pure padding (and a data length the plan has to
+    pad), and exact distance ties."""
+    data, data_part, model_cloud, model_part, visible, num_parts, gate2 = \
+        _nn_case(rng, kind)
+    N = len(data)
+    g2 = None if gate2 is None else jnp.asarray(gate2, jnp.float32)
     ref = correspond.find_nn_stats(
         jnp.asarray(data), jnp.asarray(data_part), jnp.asarray(model_cloud),
-        jnp.asarray(model_part), jnp.asarray(visible), chunk=64)
-
+        jnp.asarray(model_part), jnp.asarray(visible), chunk=64,
+        wild=num_parts, wild_gate2=g2)
     plan = correspond.make_nn_plan(
         jnp.asarray(data), jnp.asarray(data_part), jnp.asarray(model_part),
-        num_parts=num_parts, tile_n=128, chunk=128)
+        num_parts=num_parts, tile_n=32, chunk=64)
     got = correspond.find_nn_stats_planned(
         plan, jnp.asarray(model_cloud), jnp.asarray(visible),
-        with_stats=True, interpret=True)
+        with_stats=True, interpret=True, wild=num_parts, wild_gate2=g2)
 
+    oracle, best = _nn_oracle(data, data_part, model_cloud, model_part,
+                              visible, num_parts, gate2)
+    order = np.argsort(data_part, kind="stable")
+    got_corr = np.asarray(got.corr)
+    # the plan pads the data axis to whole tiles with label -1 rows, which
+    # sort first
+    n_pad = len(got_corr) - N
+    assert n_pad == (-N) % 32
+    assert (got_corr[:n_pad] == -1).all()
+    got_corr = got_corr[n_pad:]
+    np.testing.assert_array_equal(got_corr >= 0, oracle[order] >= 0)
+    if kind == "exact_ties":
+        np.testing.assert_array_equal(got_corr, oracle[order])
+        np.testing.assert_array_equal(np.asarray(ref.corr), oracle)
+    else:
+        # near-ties may resolve to another (equidistant) vertex
+        m = got_corr >= 0
+        d_got = ((model_cloud[got_corr[m]].astype(np.float64)
+                  - data[order][m]) ** 2).sum(1)
+        np.testing.assert_allclose(d_got, best[order][m], rtol=1e-5)
     np.testing.assert_allclose(np.asarray(got.cnt), np.asarray(ref.cnt),
                                atol=1e-6)
     np.testing.assert_allclose(np.asarray(got.s), np.asarray(ref.s),
                                atol=1e-4)
-    assert int(got.n_matched) == int(ref.n_matched)
-    # corr agrees after undoing the plan's data sort
-    order = np.argsort(data_part, kind="stable")
-    ref_sorted = np.asarray(ref.corr)[order]
-    got_corr = np.asarray(got.corr)
-    # ties in distance may resolve to a different (equidistant) vertex;
-    # require equal distances instead of equal indices
-    for n in range(N):
-        a, b = ref_sorted[n], got_corr[n]
-        if a == b:
-            continue
-        assert a >= 0 and b >= 0
-        dn = data[order][n]
-        da = ((model_cloud[a] - dn) ** 2).sum()
-        db = ((model_cloud[b] - dn) ** 2).sum()
-        np.testing.assert_allclose(da, db, rtol=1e-5)
+    assert int(got.n_matched) == int(ref.n_matched) == int((oracle >= 0).sum())
 
 
 def test_fit_roundtrip(setup):

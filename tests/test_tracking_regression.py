@@ -11,14 +11,13 @@ Measured baseline at this configuration (CPU f32): joint_err ~20.9 mm,
 vertex_rmse ~32.8 mm (re-measured round 4; the config's operating point
 moved when the full-bench defaults were retuned in round 3 — plane_weight
 2.0 / beta_temp 0.3 are each individually optimal here too, verified by
-single-knob reversion probes; the probe table is committed at
-data/reversion_probes_quick.json and reproducible via
+single-knob reversion probes, reproducible via
 scripts/probe_quick_reversions.py: tuned 21.5 mm joint / 34.2 mm vertex
 vs 25.1 (plane_weight=1.0), 30.7 (beta_temp=0.0), 31.8 (both) mm joint).
 Ceilings are ~1.15x measured, so a real
 regression fails CI while f32 platform noise does not.  The production
-operating point is gated by the committed TPU bench artifacts
-(data/bench_r04_selwalk.json: joint 11.0 mm / vertex 16.3 mm at 720p).
+operating point (1280x720, forest labels) is gated on the GPU by
+chip_smoke.py's joint-error bound.
 """
 
 import numpy as np
